@@ -10,12 +10,12 @@ CPU_ENV = JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8
 
 help:
 	@echo "targets:"
-	@echo "  test-fast    core unit tests (~1 min: field/hash/codec/golden/structural)"
-	@echo "  test         full suite (~15 min cold on a 2-core box, cache helps reruns)"
+	@echo "  test-fast    core unit tests (field/hash/codec/golden/structural)"
+	@echo "  test         full suite on the CPU (the compile cache helps reruns)"
 	@echo "  examples     reference-style happy path over every example circuit"
 	@echo "  happy-path   single prove -> write_vk -> verify round trip via the CLI"
-	@echo "  dryrun       8-virtual-device multi-chip sharded prove (the driver gate)"
-	@echo "  bench        TPU benchmark (emits JSON metric lines; needs a chip)"
+	@echo "  dryrun       8-virtual-device sharded multi-device prove"
+	@echo "  bench        benchmark (emits JSON metric lines; needs a GPU)"
 	@echo "  clean-cache  drop the persistent XLA compile cache"
 
 test-fast:

@@ -5,7 +5,7 @@ The default-suite test proves the real fixture at its full trace size with
 TEST_CONFIG arithmetic settings (fewer FRI queries, lower blowup — prover
 phases and transcript identical to STANDARD, just cheaper); the slow-marked
 variant uses STANDARD_CONFIG, which is what `bench.py BENCH_MODE=ecdsa`
-times on the TPU."""
+times and what chip_smoke.py proves through the CLI on the GPU."""
 
 import os
 
@@ -29,10 +29,8 @@ def _compile_ecdsa(valid=True):
 
 @pytest.mark.skipif(os.environ.get("RUN_SLOW") != "1",
                     reason="full-size (2^17-row) prove is too slow for the "
-                           "2-core CI box; RUN_SLOW=1 runs it.  The default "
-                           "bench.py (BENCH_MODE=all) proves+verifies the "
-                           "same fixture on the TPU and records it as the "
-                           "ecdsa_prover_wall_time metric line")
+                           "2-core CI box; RUN_SLOW=1 runs it.  chip_smoke.py "
+                           "proves+verifies the same fixture on the GPU")
 def test_ecdsa_prove_verify():
     import jax.numpy as jnp
     tr, cc, wm = _compile_ecdsa()

@@ -1,4 +1,4 @@
-"""Constraint-degree harness: the TPU analog of the reference's gate
+"""Constraint-degree harness: this framework's analog of the reference's gate
 testing framework (plonky2_ecdsa/biguint/gates/gate_testing.rs:20-159,
 SURVEY.md C25).
 

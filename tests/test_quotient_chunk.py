@@ -1,7 +1,7 @@
 """The in-graph row-chunked quotient evaluation (lax.map over contiguous
 row chunks, prove.quotient_body) must produce byte-identical proofs to the
-full-domain evaluation — it exists only to bound live temporaries below a
-v5e chip's HBM at 2^20 trace rows."""
+full-domain evaluation — it exists only to bound the live temporaries of
+large traces."""
 
 import os
 

@@ -1,6 +1,6 @@
 """Integrated multi-chip prover: a full prove() on the 8-device mesh must
 produce a proof that is byte-identical to the single-chip proof and that
-the EXISTING host verifier accepts (VERDICT r2 missing-item #1)."""
+the EXISTING host verifier accepts."""
 
 import numpy as np
 import pytest

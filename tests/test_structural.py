@@ -62,6 +62,6 @@ def _witness_native_vs_python(name):
 @pytest.mark.parametrize("name", sorted(factories.ALL_SMALL))
 def test_witness_core_differential(name):
     """Native C witness core and pure-numpy fallback must agree exactly
-    on every factory circuit (VERDICT r2: the two paths were selected
-    silently with no cross-check)."""
+    on every factory circuit (the two paths are selected silently, so
+    nothing else cross-checks them)."""
     _witness_native_vs_python(name)

@@ -1,6 +1,6 @@
 """ACIR -> circuit translator: the compiler front end.
 
-TPU-native equivalent of the reference's CircuitBuilderFromAcirToPlonky2
+Equivalent of the reference's CircuitBuilderFromAcirToPlonky2
 (/root/reference/plonky2-backend/src/circuit_translation/mod.rs:61-330):
 walks the opcode list, maintains the ACIR-witness -> circuit-variable map
 (analog of witness_target_map, mod.rs:320-329) and the memory blocks map,

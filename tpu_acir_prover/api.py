@@ -65,8 +65,11 @@ def _prove_dispatch(pk, ext):
     XLA program, one host<->device round trip — tests/test_fused.py asserts
     byte-identity with the per-phase path) for traces up to 2^18 rows;
     larger traces use the per-phase path, whose inter-phase temporaries are
-    freed between programs (the fused program's full oracle liveness
-    exceeds one v5e chip's 16G HBM at 2^20).  TPU_ACIR_FUSED=0/1 forces."""
+    freed between programs.  On an H100 80GB (700 W) the fused ECDSA prove
+    at 2^17 rows peaked at 2.7 GB and the per-phase prove at 2^20 rows at
+    13.1 GB (peak_bytes_in_use, PERF.md); the cutoff is kept until the
+    fused program's peak at larger sizes is measured.  TPU_ACIR_FUSED=0/1
+    forces."""
     is_jax = pk.G.xp is not np
     fused_default = "1" if pk.n <= (1 << 18) else "0"
     if is_jax and os.environ.get("TPU_ACIR_FUSED", fused_default) != "0":

@@ -1,13 +1,13 @@
 """PLONK-style circuit builder: the framework's gate/wire/generator front end.
 
-Role: the TPU-native replacement for BOTH the reference's translator target
+Role: the replacement for BOTH the reference's translator target
 API (plonky2's CircuitBuilder used at /root/reference/plonky2-backend/src/
 circuit_translation/mod.rs:61-330) and the reference fork's gate zoo.  The
 reference lowers ACIR onto ~22 specialized gate types with per-gate
 constraint polynomials; here everything lowers onto ONE wide universal
 arithmetic gate plus a LogUp lookup argument, so the whole quotient
 evaluation stays a single fused elementwise expression over the LDE — the
-shape XLA/Pallas tile best (docs/DESIGN.md).
+shape XLA fuses best (docs/DESIGN.md).
 
 Gate (W = NUM_WIRES routed wires per row; selectors qM_0..qM_{W/2-1},
 q_0..q_{W-1}, qC, qLK):

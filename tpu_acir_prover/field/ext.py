@@ -4,7 +4,7 @@
 (a0, a1) of base-field elements (each a (lo, hi) uint32 pair), representing
 a0 + a1*u.  This mirrors the reference's extension degree D=2
 (/root/reference/plonky2-backend/src/lib.rs:11-13) used for soundness of
-the opening/FRI challenges; the arithmetic here is our own TPU-limb design.
+the opening/FRI challenges; the arithmetic here is our own (lo, hi)-limb design.
 """
 
 from __future__ import annotations

@@ -1,13 +1,16 @@
-"""Goldilocks field arithmetic on 32-bit limb pairs, backend-generic.
+"""Goldilocks field arithmetic on 32-bit word pairs, backend-generic.
 
-The Goldilocks prime is p = 2^64 - 2^32 + 1.  TPUs have no native 64-bit
-integer lanes, so every field element is represented as a pair of uint32
-arrays ``(lo, hi)`` with value ``hi * 2^32 + lo`` kept canonical (< p).
+The Goldilocks prime is p = 2^64 - 2^32 + 1.  Every field element is passed
+between ops as a pair of uint32 arrays ``(lo, hi)`` with value
+``hi * 2^32 + lo`` kept canonical (< p).  Inside an op, the JAX backend
+computes in native uint64 (``uses_u64``); on numpy, and where
+``force_u32`` asks for an independent reference, each 32x32 product is
+built from 16-bit limbs.  Both paths return bit-identical values.
 
 All functions are written against a numpy-compatible namespace ``xp``
-(``numpy`` for the host path, ``jax.numpy`` for the XLA/Pallas path) so the
-exact same limb algorithms run on CPU for witness generation / testing and
-on TPU inside jitted code and Pallas kernel bodies.
+(``numpy`` for the host path, ``jax.numpy`` for the XLA path) so the exact
+same algorithms run on the host for witness generation / testing and on
+the device inside jitted code.
 
 Reference behavior being matched (not copied): the Rust backend computes
 over plonky2's GoldilocksField (see /root/reference/plonky2-backend/src/
@@ -17,8 +20,6 @@ standard Goldilocks reduction exploiting 2^64 = 2^32 - 1 (mod p) and
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as _np
 
@@ -35,40 +36,30 @@ MULTIPLICATIVE_GENERATOR = 7
 POWER_OF_TWO_GENERATOR = pow(7, (P - 1) >> 32, P)
 
 
-def _use_u64(xp) -> bool:
-    """Native-u64 arithmetic path?  TPUs have no 64-bit integer lanes, so
-    the jax path uses it only on the CPU backend (and only when x64 is
-    enabled — the dryrun/test harness turns it on).  The op count per field
-    multiply drops ~5x, which matters twice on the virtual-CPU mesh: XLA
-    compile time and the per-op execution overhead of 8 oversubscribed
-    device threads both scale with op count.  Values are bit-identical to
-    the limb path (same field arithmetic; the (lo, hi) uint32 interface is
-    preserved at every op boundary)."""
-    env = os.environ.get("TPU_ACIR_GL64")
-    if env == "0":
-        return False
+def uses_u64(xp) -> bool:
+    """Does make_gl(xp) compute in native uint64?  On jax whenever x64 is
+    enabled, which utils/jaxcfg.setup_jax always does.  Chosen by
+    measurement on an H100 80GB HBM3 at 700 W (PERF.md,
+    scripts/field_paths.py): the 2^20 x 6 NTT ran in 4.18 ms vs 6.03 ms on
+    16-bit limbs and the 2^20 x 17 Merkle sweep in 67.7 ms vs 111.9 ms, at
+    a quarter of the compile time; on the CPU the op count per multiply
+    drops ~5x.  Values are bit-identical to the limb path (the (lo, hi)
+    uint32 interface is preserved at every op boundary)."""
     if "jax" not in getattr(xp, "__name__", ""):
         return False
     import jax
-    if not jax.config.jax_enable_x64:
-        return False
-    if env == "1":
-        return True
-    try:
-        return jax.default_backend() == "cpu"
-    except Exception:  # pragma: no cover
-        return False
+    return bool(jax.config.jax_enable_x64)
 
 
 def make_gl(xp, force_u32: bool = False):
     """Build the Goldilocks op namespace over backend ``xp`` (numpy or jnp).
 
     Every function takes/returns uint32 arrays; field elements are (lo, hi)
-    tuples of equal-shape arrays.  force_u32 pins the 32-bit-limb
-    implementation even when the CPU u64 path is active (Pallas kernel
-    bodies have no 64-bit lanes).
+    tuples of equal-shape arrays.  force_u32 pins the 16-bit-limb
+    implementation even where the u64 path is active (an independent
+    implementation to check the u64 one against).
     """
-    if not force_u32 and _use_u64(xp):
+    if not force_u32 and uses_u64(xp):
         return _make_gl_u64(xp)
     u32 = xp.uint32
 
@@ -287,7 +278,7 @@ def make_gl(xp, force_u32: bool = False):
 
 
 def _make_gl_u64(xp):
-    """Goldilocks ops computed in native uint64 (CPU backend; see _use_u64).
+    """Goldilocks ops computed in native uint64 (see uses_u64).
     The public interface is unchanged — (lo, hi) uint32 array pairs in and
     out — and every op returns the same canonical field values as the limb
     path."""

@@ -1,16 +1,16 @@
 """Poseidon2 permutation over Goldilocks, width 12 — our own instantiation.
 
 Role: the algebraic hash used for Merkle commitments and the Fiat-Shamir
-challenger, the TPU-native analog of plonky2's internal Poseidon hasher
+challenger, this framework's analog of plonky2's internal Poseidon hasher
 (reference config at /root/reference/plonky2-backend/src/lib.rs:11-13).
 
 Why Poseidon2 (Grassi-Khovratovich-Schofnegger 2023 structure) and not
-classic Poseidon: Merkle leaf hashing is the dominant prover cost on a TPU
-(every LDE row of every oracle is sponge-hashed), and the classic t=12
-Cauchy MDS costs 144 generic field muls per round.  Poseidon2 replaces it
-with an external matrix made entirely of small add-chains (zero generic
-muls) and an internal matrix costing 12 muls + a tree sum — ~5x fewer
-32-bit-limb multiplies per permutation, the VPU's unit of work.
+classic Poseidon: Merkle leaf hashing is a dominant prover cost (every LDE
+row of every oracle is sponge-hashed), and the classic t=12 Cauchy MDS
+costs 144 generic field muls per round.  Poseidon2 replaces it with an
+external matrix made entirely of small add-chains (zero generic muls) and
+an internal matrix costing 12 muls + a tree sum — ~5x fewer generic field
+multiplies per permutation.
 
 Instantiation (deliberately NOT a published constant set — we are not
 targeting byte-compatibility; see docs/DESIGN.md):
@@ -24,9 +24,9 @@ targeting byte-compatibility; see docs/DESIGN.md):
     counter mode (nothing up our sleeves), reduced mod p; the diagonal is
     re-derived until M_I is invertible (det != 0 mod p)
 
-TPU-first layout: the state is a single stacked (12, *batch) (lo, hi)
-uint32 pair, rounds run under lax.scan on the JAX backend (tiny jaxpr,
-fast compiles), and hashing N Merkle leaves is N parallel VPU lanes.
+Layout: the state is a single stacked (12, *batch) (lo, hi) uint32 pair,
+rounds run under lax.scan on the JAX backend (tiny jaxpr, fast compiles),
+and hashing N Merkle leaves is N independent elementwise lanes.
 """
 
 from __future__ import annotations
@@ -170,11 +170,13 @@ def make_poseidon(G):
     def _external_matrix(state):
         """M_E = circ(2*M4, M4, M4) as one small-integer matmul per u16
         limb, computed EXACTLY in float32: products < 2^20 and sums of 12
-        of them < 2^24 stay inside the f32 mantissa.  One einsum per limb
-        hits the optimized matmul path on every backend (the MXU on TPU)
-        with a tiny jaxpr, then one field reduction per output lane; the
-        dataflow stays shallow — deep add chains trigger the XLA
-        fusion-duplication blowup (see tree_fold in prove.py)."""
+        of them < 2^24 stay inside the f32 24-bit significand.  Exactness
+        needs full f32 products, hence Precision.HIGHEST: a TF32 or bf16
+        matmul (what DEFAULT may pick on a GPU) keeps ~11 or 8 bits of each
+        u16 limb and corrupts every digest.  One einsum per limb keeps the
+        jaxpr tiny, then one field reduction per output lane; the dataflow
+        stays shallow — deep add chains trigger the XLA fusion-duplication
+        blowup (see tree_fold in prove.py)."""
         mf = xp.asarray(me_f32)
         accs = [xp.einsum("ij,j...->i...", mf,
                           limb.astype(xp.float32),
@@ -325,7 +327,7 @@ def make_poseidon(G):
 
     ns = dict(
         permute=permute, hash_no_pad=hash_no_pad, two_to_one=two_to_one,
-        zero_state=zero_state, G=G,
+        zero_state=zero_state, external_matrix=_external_matrix, G=G,
     )
     return type("Poseidon", (), ns)
 

@@ -4,7 +4,7 @@ The single-chip FRI (prover/fri.py, prove.py fri_commit_layer/fri_fold)
 keeps each layer as a GF(p^2) value vector on the coset in natural order;
 leaf j of a layer tree packs the fold pair (F(x_j), F(-x_j)) = rows j and
 j+h.  Sharding the domain as contiguous row blocks over d devices makes a
-fold step exactly TWO ppermutes on ICI:
+fold step exactly TWO ppermutes between devices:
 
   1. pair exchange: shard s >= d/2 ships its block to s - d/2, so each low
      shard holds both halves of its pairs (the +/- coset points);
@@ -17,7 +17,7 @@ contributes cap_total/(d/2) cap digests via one all_gather.  Caps and
 folded values are bit-identical to the single-chip path (test_parallel_fri),
 so a multi-chip prover emits byte-identical proofs.
 
-This is the TPU-native replacement for the reference fork's rayon-parallel
+This is the SPMD replacement for the reference fork's rayon-parallel
 FRI (SURVEY.md §2.3 "FRI commit/fold/query", §2.4).
 """
 
@@ -29,7 +29,6 @@ from ..field import gl as _gl
 from ..field.gl import P, make_gl
 from ..field.poseidon import make_poseidon
 from ..circuit.compile import powers_u64
-from .mesh import shard_map_compat
 
 _HALF = (P + 1) // 2
 
@@ -121,10 +120,10 @@ def make_sharded_fri_layer(mesh, m_l: int, cap_height: int):
         return caps_lo, caps_hi, nrl, nrh, nil, nih
 
     sh = PS("sp")
-    fn = jax.jit(shard_map_compat(
-        local, mesh,
-        (sh, sh, sh, sh, sh, sh, PS(), PS(), PS(), PS()),
-        (PS(), PS(), sh, sh, sh, sh)))
+    fn = jax.jit(jax.shard_map(
+        local, mesh=mesh,
+        in_specs=(sh, sh, sh, sh, sh, sh, PS(), PS(), PS(), PS()),
+        out_specs=(PS(), PS(), sh, sh, sh, sh), check_vma=False))
 
     def run(values_ext, inv2x_dev, beta):
         b = [jnp.uint32(beta[0] & 0xFFFFFFFF), jnp.uint32(beta[0] >> 32),

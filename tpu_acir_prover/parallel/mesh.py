@@ -1,16 +1,16 @@
 """Device-mesh runtime: sharded NTT/LDE/commit for multi-chip proving.
 
 The reference's only parallelism is rayon threads inside its Rust fork
-(SURVEY.md §2.4); the TPU-native answer is SPMD over a jax Mesh.  Axes:
+(SURVEY.md §2.4); the answer here is SPMD over a jax Mesh.  Axes:
 
-  dp  - data parallel: independent proofs / witness batches (DCN-friendly)
+  dp  - data parallel: independent proofs / witness batches
   sp  - "sequence parallel" analog: the polynomial evaluation-domain axis
         (trace rows), the true scaling axis of a FRI prover (SURVEY.md §5)
 
 The distributed NTT uses the four-step (Bailey) decomposition: view the
 size-n domain as an (a, b) matrix, do local column NTTs, twiddle, reshard
 with one all_to_all, then local row NTTs.  This maps butterfly exchanges
-onto a single ICI collective instead of log(n) fine-grained ones.
+onto a single collective instead of log(n) fine-grained ones.
 """
 
 from __future__ import annotations
@@ -96,10 +96,11 @@ def make_sharded_ntt(mesh, axis: str, a: int, b: int, inverse=False):
         x = ntt(G, (glo.T, ghi.T), inverse=inverse)  # (b, a/d)
         return x[0], x[1]
 
-    fn = jax.jit(shard_map_compat(
-        local, mesh,
-        (PS(None, axis), PS(None, axis), PS(None, axis), PS(None, axis)),
-        (PS(None, axis), PS(None, axis))))
+    fn = jax.jit(jax.shard_map(
+        local, mesh=mesh,
+        in_specs=(PS(None, axis), PS(None, axis), PS(None, axis),
+                  PS(None, axis)),
+        out_specs=(PS(None, axis), PS(None, axis)), check_vma=False))
 
     def run(values):
         lo, hi = values
@@ -107,18 +108,3 @@ def make_sharded_ntt(mesh, axis: str, a: int, b: int, inverse=False):
         return fn(lo, hi, jnp.asarray(tw_lo), jnp.asarray(tw_hi))
 
     return run
-
-def shard_map_compat(f, mesh, in_specs, out_specs):
-    """shard_map across jax versions: new API (check_vma) or old (check_rep)."""
-    import jax
-    try:
-        from jax import shard_map as _sm
-        try:
-            return _sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                       check_vma=False)
-        except TypeError:
-            return _sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
-    except ImportError:
-        from jax.experimental.shard_map import shard_map as _sm
-        return _sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                   check_rep=False)

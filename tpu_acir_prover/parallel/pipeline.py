@@ -1,9 +1,9 @@
 """Sharded prover phases: multi-chip wire commitment (INTT -> LDE -> Poseidon
 Merkle cap) over a (dp, sp) mesh.
 
-dp shards independent witness batches (DCN-friendly); sp shards the
+dp shards independent witness batches; sp shards the
 polynomial domain (trace rows) — the prover's true scaling axis (SURVEY.md
-§5).  Each four-step NTT phase rides exactly one all_to_all over ICI; leaf
+§5).  Each four-step NTT phase rides exactly one all_to_all; leaf
 hashing stays local; each sp shard contributes one subtree root to the cap
 via all_gather.
 
@@ -61,7 +61,6 @@ def make_sharded_wire_commit(mesh, n: int, num_cols: int, rate_bits: int = 3):
     import jax
     import jax.numpy as jnp
     from jax.sharding import PartitionSpec as PS
-    from .mesh import shard_map_compat
     from ..prover.ntt import ntt
 
     G = make_gl(jnp)
@@ -146,13 +145,14 @@ def make_sharded_wire_commit(mesh, n: int, num_cols: int, rate_bits: int = 3):
         stack = lambda k: jnp.stack([o[k] for o in outs])
         return stack(0), stack(1), stack(2), stack(3)
 
-    fn = jax.jit(shard_map_compat(
-        local_step, mesh,
-        (PS("dp", None, "sp", None), PS("dp", None, "sp", None),
-         PS(None, "sp"), PS(None, "sp"), PS(None, "sp"),
-         PS(None, "sp"), PS(None), PS(None)),
-        (PS("dp", None, None), PS("dp", None, None),
-         PS("dp", None, "sp", None), PS("dp", None, "sp", None))))
+    fn = jax.jit(jax.shard_map(
+        local_step, mesh=mesh,
+        in_specs=(PS("dp", None, "sp", None), PS("dp", None, "sp", None),
+                  PS(None, "sp"), PS(None, "sp"), PS(None, "sp"),
+                  PS(None, "sp"), PS(None), PS(None)),
+        out_specs=(PS("dp", None, None), PS("dp", None, None),
+                   PS("dp", None, "sp", None), PS("dp", None, "sp", None)),
+        check_vma=False))
 
     def run(wires_lo, wires_hi):
         import jax.numpy as jnp

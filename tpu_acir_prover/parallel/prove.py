@@ -2,13 +2,13 @@
 shard_map SPMD program over a jax Mesh.
 
 The reference's scaling story is rayon threads across FFT/Merkle/quotient
-inside its Rust fork (SURVEY.md §2.4); the TPU-native equivalent shards the
+inside its Rust fork (SURVEY.md §2.4); the SPMD equivalent shards the
 trace-row / evaluation-domain axis ("sp" — the prover's true scaling axis,
 SURVEY.md §5 "trace-length scaling") as contiguous row blocks across chips
-and runs each phase under shard_map with explicitly placed ICI collectives:
+and runs each phase under shard_map with explicitly placed collectives:
 
   - NTT/LDE: four-step (Bailey) decomposition — three all_to_alls move the
-    butterfly exchanges onto ICI, local radix-2 NTTs do the FLOPs, and a
+    butterfly exchanges between devices, local radix-2 NTTs do the FLOPs, and a
     final all_to_all restores NATURAL-ORDER row blocks so Merkle leaves (and
     therefore caps, paths, and the whole proof) are byte-identical to the
     single-chip prover.  Tiny domains that don't satisfy the grid
@@ -58,7 +58,7 @@ from ..prover.prove import (Oracle, ProvingKey, _ext_arg, _ext_scal,
                             fri_combine_body, prefix_product_ext,
                             prefix_sum_ext, prove, quotient_chunk_rows,
                             quotient_rows_body, sum_rows, tree_fold)
-from .mesh import _twiddle_matrix, shard_map_compat
+from .mesh import _twiddle_matrix
 from .pipeline import grid_dims
 
 
@@ -303,8 +303,9 @@ class ShardedProvingKey(ProvingKey):
     def _smjit(self, key, body, in_specs, out_specs):
         if key not in self._jits:
             import jax
-            self._jits[key] = jax.jit(shard_map_compat(
-                body, self.mesh, in_specs, out_specs))
+            self._jits[key] = jax.jit(jax.shard_map(
+                body, mesh=self.mesh, in_specs=in_specs,
+                out_specs=out_specs, check_vma=False))
         return self._jits[key]
 
     # ---- phase overrides ------------------------------------------------------

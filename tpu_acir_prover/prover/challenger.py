@@ -1,7 +1,7 @@
 """Fiat-Shamir challenger: a duplex Poseidon sponge on the host.
 
 Both prover and verifier drive an identical transcript, so challenges are
-sound under Fiat-Shamir.  This is the TPU-framework analog of plonky2's
+sound under Fiat-Shamir.  This is this framework's analog of plonky2's
 Challenger (the reference relies on the external fork's Keccak/Poseidon
 challenger, SURVEY.md §2.3); we use our Poseidon instantiation throughout.
 Host-side on purpose: a transcript is O(hundreds) of permutations, far off

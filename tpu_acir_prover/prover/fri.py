@@ -1,7 +1,7 @@
 """Batch FRI: commit/fold on the accelerator, query assembly + host verify.
 
 This owns what the reference delegates to its external plonky2 fork's FRI
-(SURVEY.md §2.3 "FRI commit/fold/query"); the design is TPU-first:
+(SURVEY.md §2.3 "FRI commit/fold/query"); the design is accelerator-first:
 
   * the combined polynomial F and every fold layer live as GF(p^2) value
     vectors on the LDE coset in natural order, so a fold step is one
